@@ -22,21 +22,6 @@ BANANA = os.path.join(
 
 
 def main(n_frames=32, dims=(256, 512)):
-    import contextlib
-
-    import jax
-    import jax.numpy as jnp
-
-    from reconplan_tpu.utils.tpu_lock import tpu_lock
-
-    plat = jax.config.jax_platforms or os.environ.get("JAX_PLATFORMS") or ""
-    lock = (contextlib.nullcontext() if plat.startswith("cpu")
-            else tpu_lock(name="bench_fusion", wait_secs=600))
-    with lock:
-        return _run(n_frames, dims)
-
-
-def _run(n_frames, dims):
     import jax
     import jax.numpy as jnp
 
@@ -46,8 +31,6 @@ def _run(n_frames, dims):
     from reconplan_tpu.ops.marching import marching_cubes
     from reconplan_tpu.ops.tsdf import TSDFGrid
     from reconplan_tpu.recon.metrics import chamfer_to_mesh
-
-    fence = jax.jit(lambda x: jnp.sum(x))
 
     cam = SplatCamera()
     cam.add_mesh_file(BANANA, translate=OBJ)
@@ -72,22 +55,15 @@ def _run(n_frames, dims):
         grid, na = tb.integrate_frames_bricked_device(
             grid, depths, poses, fx, fy, cx, cy, max_active=8192
         )
-        _ = float(fence(grid.weight))
-        t0 = time.perf_counter()
-        for _ in range(3):
-            _ = float(fence(grid.weight))
-        rpc = (time.perf_counter() - t0) / 3
-        # amortize over REPS batches per fence: a single batch can now run
-        # faster than the ~30 ms RPC-readback baseline, driving the
-        # rpc-subtracted time negative
+        jax.block_until_ready(grid.weight)
         REPS = 5
         t0 = time.perf_counter()
         for _ in range(REPS):
             grid, na = tb.integrate_frames_bricked_device(
                 grid, depths, poses, fx, fy, cx, cy, max_active=8192
             )
-        _ = float(fence(grid.weight))
-        dt = max((time.perf_counter() - t0 - rpc) / REPS, 1e-9)
+        jax.block_until_ready(grid.weight)
+        dt = (time.perf_counter() - t0) / REPS
         fps = n_frames / dt
 
         sdf, weight = tb.to_dense(grid)
@@ -101,6 +77,7 @@ def _run(n_frames, dims):
             ch, _, _ = chamfer_to_mesh(tris.reshape(-1, 3), gt_v, gt_f)
         print(json.dumps({
             "config": "banana orbit fusion",
+            "device_kind": jax.devices()[0].device_kind,
             "grid": N,
             "frames": n_frames,
             "active_bricks": int(na),

@@ -15,16 +15,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--arcs", type=int, default=4)
-    ap.add_argument("--platform", choices=["cpu", "tpu"], default="tpu")
     ap.add_argument("--capacity", type=int, default=1 << 16)
     ap.add_argument("--frame-capacity", type=int, default=1 << 14)
     args = ap.parse_args(argv)
-
-    if args.platform == "cpu":
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
 
     from reconplan_tpu.apps.scan import BANANA_MESH, D435, OBJECT_POINT
     from reconplan_tpu.grr.paths import scan_arc

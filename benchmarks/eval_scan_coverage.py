@@ -30,14 +30,7 @@ def main(argv=None):
     ap.add_argument("--samples", type=int, default=60_000)
     ap.add_argument("--bins-z", type=int, default=4)
     ap.add_argument("--bins-az", type=int, default=8)
-    ap.add_argument("--platform", choices=["cpu", "tpu"], default="cpu")
     args = ap.parse_args(argv)
-
-    if args.platform == "cpu":
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
 
     from reconplan_tpu.apps.scan import BANANA_MESH, OBJECT_POINT
     from reconplan_tpu.io.meshio import load_mesh, sample_mesh_surface

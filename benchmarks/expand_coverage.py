@@ -95,12 +95,7 @@ def main(argv=None):
     ap.add_argument("--smooth-iters", type=int, default=2)
     ap.add_argument("--out", default=None,
                     help="save dir (default: in place)")
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
     args = ap.parse_args(argv)
-
-    if args.platform == "cpu":
-        import jax
-        jax.config.update("jax_platforms", "cpu")
 
     from reconplan_tpu.grr import (
         RedundancyResolution, census_reachability, evaluate_roadmap,

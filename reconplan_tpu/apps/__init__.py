@@ -9,27 +9,7 @@
   python -m reconplan_tpu.apps.eval_roadmap ur10 rot_variable_yaw
       (reference: ``python experiment/roadmap_quality.py``)
 
-Importing this package enables JAX's persistent compilation cache (the
-roadmap builder's batched-IK buckets cost ~30-60 s of XLA compile each on
-first run; cached runs skip all of it).
+Every ``main()`` enables JAX's persistent compilation cache
+(``utils.compile_cache``): the roadmap builder's batched-IK buckets take
+tens of seconds of XLA compile each on a first run.
 """
-
-import os as _os
-
-
-def _enable_compilation_cache():
-    try:
-        import jax
-
-        cache_dir = _os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            _os.path.join(_os.path.expanduser("~"), ".cache", "reconplan_jax"),
-        )
-        _os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
-_enable_compilation_cache()

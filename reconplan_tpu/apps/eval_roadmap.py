@@ -26,6 +26,9 @@ def main(argv=None):
                     "reachable workspace nodes the roadmap configures")
     ap.add_argument("--census-restarts", type=int, default=8)
     args = ap.parse_args(argv)
+    from reconplan_tpu.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     opts = load_problem(args.robot, args.rotation_type)
     robot = make_robot(opts)

@@ -38,6 +38,9 @@ def main(argv=None):
     ap.add_argument("--rs-serial", default="",
                     help="serial-match a specific device (empty = first)")
     args = ap.parse_args(argv)
+    from reconplan_tpu.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     targets = read_joint_positions(args.ctraj, every_nth=args.every_nth)
     print(f"{len(targets)} targets from {args.ctraj}")

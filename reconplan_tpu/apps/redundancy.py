@@ -181,6 +181,9 @@ def main(argv=None):
         "floor check)",
     )
     args = ap.parse_args(argv)
+    from reconplan_tpu.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
     build_roadmap(
         args.robot,
         args.rotation_type,

@@ -30,6 +30,9 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=640)
     ap.add_argument("--height", type=int, default=480)
     args = ap.parse_args(argv)
+    from reconplan_tpu.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
 
     stitcher = RGBDStitcher(
         PinholeIntrinsic(args.width, args.height, **D435)

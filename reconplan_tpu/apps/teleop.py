@@ -252,6 +252,9 @@ def main(argv=None):
                     help="read the first pygame joystick instead of the "
                     "keyboard (teleop_joystick.py rebuild)")
     args = ap.parse_args(argv)
+    from reconplan_tpu.utils.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
     if args.mode == "html":
         run_html_teleop(args.roadmap, port=args.port)
         return

@@ -1,6 +1,6 @@
 """Core SE3/quaternion math and workspace sampling grids.
 
-TPU-native replacement for the reference's ``Expansion-GRR/grr/utils.py``
+JAX replacement for the reference's ``Expansion-GRR/grr/utils.py``
 (numba-JIT metrics, scipy Rotation conversions, sklearn BallTree grid
 connectivity). Everything device-side is pure ``jax.numpy`` and freely
 ``vmap``/``jit``-able; grid *construction* helpers are host-side numpy since

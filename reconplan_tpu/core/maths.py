@@ -360,9 +360,9 @@ def matrix_to_pose(T):
 def transform_points(T, points):
     """Apply (..., 4, 4) transform(s) to (..., N, 3) points.
 
-    Uses HIGHEST matmul precision: on TPU the MXU would otherwise truncate
-    inputs to bf16, which is ~1e-3 absolute error — far above the sub-mm
-    accuracy this framework targets for registration/fusion.
+    Uses HIGHEST matmul precision: a default-precision f32 product may run
+    in TF32 on the GPU's tensor cores (~1e-3 relative error), far above the
+    sub-mm accuracy this framework targets for registration/fusion.
     """
     rotated = jnp.matmul(
         points,

@@ -1,4 +1,4 @@
-"""Expansion-GRR: global redundancy resolution, TPU-first.
+"""Expansion-GRR: global redundancy resolution on the accelerator.
 
 Rebuild of the reference's planning core (``Expansion-GRR/grr/``):
   - workspace.py  -> :mod:`workspace`   (arrays + dense NN instead of

@@ -3,10 +3,9 @@
 The reference carries three NN structures — sklearn BallTree, pynndescent
 NNDescent, and a 767-line Python port of OMPL's GNAT metric tree
 (``grr/gnat.py``, ``grr/nearest_neighbors.py``) — because exact metric-tree
-search is the only fast option on CPU. On TPU the calculus inverts: an
-exact dense top-k on the MXU outperforms all of them with ZERO build time
-(measured: 1M SE3 points, 4096 queries, k=5 -> 0.19 s on one v5e chip vs
-10 s BallTree build + 4.7 s query; see benchmarks/bench_nn.py).
+search is the only fast option on CPU. On an accelerator the calculus
+inverts: an exact dense top-k as matrix products needs ZERO build time
+(``benchmarks/bench_nn.py`` times it against a BallTree build + query).
 
 This module exposes that engine through the reference's own abstract
 interface (``grr/nearest_neighbors.py:21-68``: add/add_list/nearest/

@@ -4,7 +4,8 @@ Rebuild of ``Expansion-GRR/grr/solver.py`` (``RedundancySolver``). The
 algorithm is preserved — BFS wavefront from seed configurations, per-node
 IK projection of the inverse-square-distance weighted average of <=4-layer
 neighbor configurations, bisection continuity checks on edges, boundary
-destruct-and-rebuild — but the execution model is inverted for TPU:
+destruct-and-rebuild — but the execution model is inverted for an
+accelerator:
 
   * the reference issues ONE C++ IK call per node and per bisection
     midpoint inside Python loops (its hottest path, ``solver.py:98-149``,
@@ -685,7 +686,7 @@ class ExpansionSolver:
         (plus multi-seed rescue restarts) configures MORE nodes but
         leaves a rougher field — measured on ur10 rot_fixed: 2685/3299
         configured but 5.8% disconnection / 9.9 rad/m vs the reference
-        artifact's 2692 / 0.0% / ~4.2. This pass is the TPU-shaped
+        artifact's 2692 / 0.0% / ~4.2. This pass is the batched
         equivalent of the reference's implicit coherence: Gauss-Seidel
         relaxation of the redundancy field.
 

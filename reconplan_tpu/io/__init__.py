@@ -4,7 +4,7 @@ The host<->device boundary of the framework (SURVEY.md §5): RGBD frames and
 robot commands cross here; everything inward is JAX. Replaces the
 reference's librealsense/ur_rtde/OpenCV dependencies with protocol-shaped
 shims (`FrameFeed`, `CommandSink`) so recorded datasets, the synthetic
-TPU renderer, and (on real hardware) camera/robot drivers are
+on-device renderer, and (on real hardware) camera/robot drivers are
 interchangeable.
 """
 

@@ -13,7 +13,7 @@ Host-side shims mirroring the reference's real-hardware layer:
                                       -> :class:`Teleop`.
 
 The command-sink protocol keeps hardware strictly host-side (SURVEY §5):
-the TPU pipeline produces joint trajectories; a driver consumes them.
+the device pipeline produces joint trajectories; a driver consumes them.
 """
 
 from __future__ import annotations
@@ -169,7 +169,7 @@ class SimRTDE(RTDE):
 
 class HardwareRTDE(RTDE):
     """Binds to the real ``ur_rtde`` C++ bindings when installed (on a
-    robot-connected host; not in the TPU image). Same surface as the
+    robot-connected host; not in the compute image). Same surface as the
     reference wrapper, default IP included (``rtde.py:8``)."""
 
     def __init__(self, robot_ip: str = "192.168.1.102"):
@@ -212,7 +212,7 @@ class HardwareRTDE(RTDE):
 
 class RealSenseCamera:
     """Binds to ``pyrealsense2`` when installed (on a camera-connected
-    host; not in the TPU image) — the hardware twin of
+    host; not in the compute image) — the hardware twin of
     :class:`reconplan_tpu.io.render.SplatCamera`, mirroring the reference's
     capture setup (``data_recorder.py:55-153``): serial-matched device
     lookup, advanced-mode JSON configuration load, 640x480 Z16 depth +

@@ -1,12 +1,12 @@
 """Kinematics: chain models, FK/Jacobian, batched DLS-IK, collision.
 
-TPU-native replacement for the reference's two C++ robot-model backends —
+JAX replacement for the reference's two C++ robot-model backends —
 Klampt (``Expansion-GRR/grr/robot.py``) and PyBullet
 (``Expansion-GRR/bullet_api/robot.py``). One pure-JAX kinematic core serves
 both roles: FK/Jacobians are closed-form over the parsed ``.rob`` chain,
 IK is damped-least-squares under ``lax.while_loop`` and batches with
 ``vmap`` (the reference called into C++ once per IK solve; here thousands of
-solves run per dispatch on the MXU).
+solves run per device dispatch).
 """
 
 from reconplan_tpu.kin.rob_parser import RobModel, parse_rob

@@ -95,8 +95,8 @@ def fk_all(model: KinematicModel, q: jnp.ndarray):
         else:
             R_joint = _axis_rotation(model.axes[i], q[i])
             t_joint = jnp.zeros(3, dtype=q.dtype)
-        # HIGHEST precision: TPU MXU bf16 truncation otherwise costs ~mm of
-        # FK accuracy over the 13-link chain (measured vs golden wtraj.txt).
+        # HIGHEST precision: a reduced-precision (TF32) product would cost
+        # ~mm of FK accuracy over the 13-link chain (golden wtraj.txt).
         mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
         R_local = mm(model.R_parent[i], R_joint)
         t_local = mm(model.R_parent[i], t_joint) + model.t_parent[i]

@@ -3,7 +3,7 @@ playback, ``main.py:218-234``: PyBullet POSITION_CONTROL motors stepped
 at 240 Hz while the camera captures — executed joints LAG the command,
 so executed-vs-planned tracking error is a real, measurable quantity).
 
-TPU-native redesign instead of a physics-engine port: the reference
+A batched JAX redesign instead of a physics-engine port: the reference
 scenes apply no external contacts during playback, so what its
 ``stepSimulation`` loop actually exercises is each joint's motor servo
 — a velocity-clamped, acceleration-limited position regulator. That

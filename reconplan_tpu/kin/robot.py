@@ -11,7 +11,7 @@ planning code (``grr/robot.py:93-312`` and its PyBullet twin
 One JAX implementation replaces both C++ backends. On top of the reference
 surface, every kernel has a batched twin (``solve_ik_batch``,
 ``solve_fk_batch``, ``distance_batch``) — the roadmap builder and online
-solver run thousands of these per dispatch on TPU instead of one FFI call
+solver run thousands of these per device dispatch instead of one FFI call
 each.
 
 Behavioral notes (divergences from the reference are deliberate and listed):

@@ -1,10 +1,10 @@
 """Device kernels: point clouds, nearest neighbors, ICP, TSDF, marching cubes.
 
-TPU-native replacement for the Open3D C++ geometry/registration stack used by
+JAX replacement for the Open3D C++ geometry/registration stack used by
 the reference's ``stitcher.py`` plus the sklearn/pynndescent/GNAT NN
 structures used by Expansion-GRR. Everything is fixed-shape (padding + masks)
-and jit/vmap-friendly; the big reductions ride the MXU via matmul-form
-distance computation.
+and jit/vmap-friendly; the big reductions are matmul-form distance
+computations.
 """
 
 from reconplan_tpu.ops.pointcloud import (

@@ -1,4 +1,4 @@
-"""Iterative closest point registration on TPU.
+"""Iterative closest point registration on the accelerator.
 
 Replaces Open3D's registration pipeline used by the reference stitcher
 (``stitcher.py:73-112``):
@@ -9,7 +9,7 @@ Replaces Open3D's registration pipeline used by the reference stitcher
   - ``registration_colored_icp`` (Park, Zhou, Koltun ICCV 2017)
     -> :func:`colored_icp` (joint geometric + photometric objective)
 
-Design: correspondences are dense nearest neighbors on the MXU (no KD-tree),
+Design: correspondences are dense matmul-form nearest neighbors (no KD-tree),
 every iteration is fixed-shape (threshold masking, never compaction), and
 the whole solve lives in one ``lax.while_loop`` — one device dispatch per
 registration instead of Open3D's per-iteration C++ tree queries.
@@ -49,9 +49,9 @@ def register_kabsch(src, dst, weights):
 
     Uses Horn (JOSA 1987): the optimal rotation is the principal
     eigenvector of a symmetric 4x4 built from the cross-covariance. Chosen
-    over SVD-Kabsch deliberately: TPU's iterative f32 SVD of non-symmetric
-    matrices shows data-dependent ~1e-3 rotation errors, while symmetric
-    ``eigh`` is ~2e-7 — measured on this hardware.
+    over SVD-Kabsch deliberately: an iterative f32 SVD of non-symmetric
+    matrices can show data-dependent ~1e-3 rotation errors on an
+    accelerator, while symmetric ``eigh`` stays near f32 precision.
     """
     w = weights / jnp.maximum(jnp.sum(weights), 1e-9)
     mu_s = jnp.sum(src * w[:, None], axis=0)

@@ -1,16 +1,16 @@
-"""Brute-force batched nearest neighbors on the MXU.
+"""Brute-force batched nearest neighbors as matrix products.
 
 Replaces the reference's three NN structures — sklearn BallTree
 (``grr/workspace.py:75-81``), pynndescent NNDescent with a numba SE3 metric
 (``workspace.py:87-100``), and the OMPL-style GNAT port (``grr/gnat.py``) —
 with dense top-k. At roadmap scales (5k-100k points) a blocked distance
-matrix on the MXU is orders of magnitude faster than tree traversal on CPU,
+matrix on the accelerator beats tree traversal on CPU,
 is exact (NNDescent is approximate), and needs no build phase at all
 (the reference documents 40 s - 30 min NNDescent builds,
 ``workspace.py:89-93``).
 
 Distance matrices are computed in matmul form (|x|^2 + |y|^2 - 2 x.y) with
-f32 accumulation so they tile onto the MXU.
+f32 accumulation at HIGHEST precision (no reduced-precision TF32).
 """
 
 from __future__ import annotations

@@ -1,22 +1,22 @@
-"""TSDF volumetric fusion (KinectFusion-style) as a dense gather kernel.
+"""TSDF volumetric fusion (KinectFusion-style), dense reference engine.
 
-This is a NEW first-class capability of the rebuild (the reference ships YCB
-``tsdf/`` meshes as data but implements no fusion — SURVEY.md intro note);
-BASELINE.json's north star benchmarks it: >= 1000 RGBD frames/s integration
-at 512^3 on a v5e-8.
+The reference ships YCB ``tsdf/`` meshes as data but implements no fusion
+(SURVEY.md intro note); this module is the plain XLA engine that the
+brick-sparse engine (``ops.tsdf_brick``) is tested against. Both engines
+share :func:`world_to_camera`, :func:`project_to_pixels` and
+:func:`fuse_observation`, so a voxel sees the same pixel and the same
+update in either.
 
-TPU-first design:
-  * voxel-centric GATHER formulation (not the GPU-style scatter): every
-    voxel projects into the depth image and samples it — a perfectly
-    regular, fully-vectorized elementwise pass + one gather, which XLA
-    fuses into a single HBM sweep of the grid per frame batch.
+Design:
+  * voxel-centric GATHER formulation: every voxel projects into the depth
+    image and samples it — an elementwise pass plus one gather, which XLA
+    fuses into a single sweep of the grid per frame batch.
   * fixed shapes everywhere; the grid is a pytree (works under jit/donate
     and shards spatially over a device mesh along z — see
     ``reconplan_tpu.parallel``).
   * multi-frame integration amortizes grid traffic: ``integrate_frames``
     folds F frames in one pass over the grid (the grid is read+written
-    once, not F times) — the key to beating the HBM-bandwidth bound of
-    naive per-frame loops.
+    once, not F times).
 """
 
 from __future__ import annotations
@@ -90,32 +90,63 @@ def _voxel_world_coords(grid: TSDFGrid):
     return grid.origin + coords * grid.voxel_size
 
 
-def _chunk_cam_coords(shape, origin, z0, voxel, T_w2c):
-    """Camera coordinates of a z-chunk's voxels, fully scalarized.
+def world_to_camera(wx, wy, wz, T_w2c):
+    """Camera coordinates of world points given as separate x/y/z planes.
 
-    Never materializes an (..., 3) world-coordinate tensor (at 512^3 that
-    single tensordot cost 1.5 GB per frame and OOM'd the chip); instead the
-    rotation is applied as 9 scalar multiply-adds over iota-derived planes,
-    which XLA fuses into the consuming elementwise kernel.
+    The rotation is applied as 9 scalar multiply-adds, which XLA fuses
+    into the consuming elementwise kernel (no (..., 3) tensor is ever
+    materialized: at 512^3 one costs 1.5 GB per frame).
     """
-    Dc, H, W = shape
-    zi = jax.lax.broadcasted_iota(jnp.float32, shape, 0)
-    yi = jax.lax.broadcasted_iota(jnp.float32, shape, 1)
-    xi = jax.lax.broadcasted_iota(jnp.float32, shape, 2)
-    wx = origin[0] + xi * voxel
-    wy = origin[1] + yi * voxel
-    wz = z0 + zi * voxel
     R = T_w2c[:3, :3]
     t = T_w2c[:3, 3]
-    cx_ = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + t[0]
-    cy_ = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + t[1]
-    cz_ = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + t[2]
-    return cx_, cy_, cz_
+    x = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + t[0]
+    y = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + t[1]
+    z = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + t[2]
+    return x, y, z
 
 
-def _integrate_chunk(sdf, weight, color, z0, origin, voxel,
+def project_to_pixels(x, y, z, fx, fy, cx, cy, Hd, Wd):
+    """Nearest pixel of camera-frame points.
+
+    Returns (flat row-major pixel index, clamped into the image; inside:
+    in front of the camera and within the image)."""
+    z_safe = jnp.where(jnp.abs(z) < 1e-6, 1e-6, z)
+    ui = jnp.round(x / z_safe * fx + cx).astype(jnp.int32)
+    vi = jnp.round(y / z_safe * fy + cy).astype(jnp.int32)
+    inside = (z > 1e-4) & (ui >= 0) & (ui < Wd) & (vi >= 0) & (vi < Hd)
+    flat = jnp.clip(vi, 0, Hd - 1) * Wd + jnp.clip(ui, 0, Wd - 1)
+    return flat, inside
+
+
+def fuse_observation(sdf, weight, color, d, z, inside, c_obs,
+                     trunc, depth_max, max_weight):
+    """One frame's projective TSDF update of voxels at camera depth ``z``
+    that observe depth ``d`` (meters) at their pixel.
+
+    ``sdf`` is in truncation units, ``weight`` counts observations; the
+    new sdf and ``color`` (``(..., 3)``, any scale, or None) are running
+    averages weighted by observation count (Open3D semantics). Returns
+    (sdf, weight, color)."""
+    ok = inside & (d > 0.0) & (d < depth_max)
+    sdf_obs = d - z  # meters, positive in front of the surface
+    ok = ok & (sdf_obs > -trunc)
+    tsdf_obs = jnp.clip(sdf_obs / trunc, -1.0, 1.0)
+    w_obs = ok.astype(sdf.dtype)
+    w_new = weight + w_obs
+    denom = jnp.maximum(w_new, 1.0)
+    sdf_new = (sdf * weight + tsdf_obs * w_obs) / denom
+    sdf_new = jnp.where(w_new > 0, sdf_new, 1.0)
+    if color is not None:
+        color = (
+            color * weight[..., None] + c_obs * w_obs[..., None]
+        ) / denom[..., None]
+    return sdf_new, jnp.minimum(w_new, max_weight), color
+
+
+def _integrate_chunk(sdf, weight, color, z_index0, origin, voxel,
                      depths, colors, T_w2c_all, params):
-    """Fold all F frames into one z-chunk of the grid.
+    """Fold all F frames into one z-chunk of the grid (its first slice
+    is z index ``z_index0``).
 
     The frame loop unrolls as elementwise chains over the chunk; with
     chunks sized ~16M voxels only a couple of chunk-sized temporaries are
@@ -123,34 +154,32 @@ def _integrate_chunk(sdf, weight, color, z0, origin, voxel,
     once for the whole F-frame batch.
     """
     fx, fy, cx, cy, depth_scale, depth_max, trunc, max_weight = params
-    F = depths.shape[0]
-    Hd, Wd = depths.shape[1], depths.shape[2]
+    F, Hd, Wd = depths.shape
+    shape = sdf.shape
+    # world coordinates as origin + integer index * voxel (the brick
+    # engine forms them the same way, so both see identical points)
+    zi = jax.lax.broadcasted_iota(jnp.float32, shape, 0) + z_index0
+    yi = jax.lax.broadcasted_iota(jnp.float32, shape, 1)
+    xi = jax.lax.broadcasted_iota(jnp.float32, shape, 2)
+    wx = origin[0] + xi * voxel
+    wy = origin[1] + yi * voxel
+    wz = origin[2] + zi * voxel
 
+    use_color = color is not None and colors is not None
     for f in range(F):
-        x, y, z = _chunk_cam_coords(sdf.shape, origin, z0, voxel, T_w2c_all[f])
-        z_safe = jnp.where(jnp.abs(z) < 1e-6, 1e-6, z)
-        ui = jnp.round(x / z_safe * fx + cx).astype(jnp.int32)
-        vi = jnp.round(y / z_safe * fy + cy).astype(jnp.int32)
-        inside = (z > 1e-4) & (ui >= 0) & (ui < Wd) & (vi >= 0) & (vi < Hd)
-        ui = jnp.clip(ui, 0, Wd - 1)
-        vi = jnp.clip(vi, 0, Hd - 1)
-        flat = vi * Wd + ui
+        x, y, z = world_to_camera(wx, wy, wz, T_w2c_all[f])
+        flat, inside = project_to_pixels(x, y, z, fx, fy, cx, cy, Hd, Wd)
         d = depths[f].reshape(-1)[flat].astype(jnp.float32) / depth_scale
-        ok = inside & (d > 0.0) & (d < depth_max)
-
-        sdf_obs = d - z  # meters, positive in front of the surface
-        ok = ok & (sdf_obs > -trunc)
-        tsdf_obs = jnp.clip(sdf_obs / trunc, -1.0, 1.0)
-        w_obs = ok.astype(sdf.dtype)
-        w_new = weight + w_obs
-        sdf = (sdf * weight + tsdf_obs * w_obs) / jnp.maximum(w_new, 1.0)
-        sdf = jnp.where(w_new > 0, sdf, 1.0)
-        if color is not None and colors is not None:
-            c_obs = colors[f].reshape(-1, 3)[flat].astype(sdf.dtype)
-            color = (
-                color * weight[..., None] + c_obs * w_obs[..., None]
-            ) / jnp.maximum(w_new, 1.0)[..., None]
-        weight = jnp.minimum(w_new, max_weight)
+        c_obs = (
+            colors[f].reshape(-1, 3)[flat].astype(sdf.dtype)
+            if use_color else None
+        )
+        sdf, weight, c_new = fuse_observation(
+            sdf, weight, color if use_color else None, d, z, inside, c_obs,
+            trunc, depth_max, max_weight,
+        )
+        if use_color:
+            color = c_new
     return sdf, weight, color
 
 
@@ -200,17 +229,15 @@ def integrate_frames(
     sdf_c = grid.sdf.reshape(n_chunks, Dc, H, W)
     w_c = grid.weight.reshape(n_chunks, Dc, H, W)
     col_c = grid.color.reshape(n_chunks, Dc, H, W, 3) if has_color else None
-    z0s = grid.origin[2] + (
-        jnp.arange(n_chunks, dtype=jnp.float32) * Dc * grid.voxel_size
-    )
+    z_starts = jnp.arange(n_chunks, dtype=jnp.float32) * Dc
 
     def chunk_fn(args):
         if has_color:
-            sdf_k, w_k, col_k, z0 = args
+            sdf_k, w_k, col_k, z_start = args
         else:
-            (sdf_k, w_k, z0), col_k = args, None
+            (sdf_k, w_k, z_start), col_k = args, None
         sdf_k, w_k, col_k = _integrate_chunk(
-            sdf_k, w_k, col_k, z0, grid.origin, grid.voxel_size,
+            sdf_k, w_k, col_k, z_start, grid.origin, grid.voxel_size,
             depths, colors if has_color else None, T_w2c, params,
         )
         if has_color:
@@ -218,9 +245,9 @@ def integrate_frames(
         return sdf_k, w_k
 
     if has_color:
-        sdf_c, w_c, col_c = jax.lax.map(chunk_fn, (sdf_c, w_c, col_c, z0s))
+        sdf_c, w_c, col_c = jax.lax.map(chunk_fn, (sdf_c, w_c, col_c, z_starts))
     else:
-        sdf_c, w_c = jax.lax.map(chunk_fn, (sdf_c, w_c, z0s))
+        sdf_c, w_c = jax.lax.map(chunk_fn, (sdf_c, w_c, z_starts))
 
     return TSDFGrid(
         sdf_c.reshape(D, H, W),
@@ -268,7 +295,7 @@ def raycast_depth(
     )
     R = T_cam_to_world[:3, :3]
     eye = T_cam_to_world[:3, 3]
-    dirs = jnp.tensordot(dirs_cam, R.T, axes=1)
+    dirs = jnp.tensordot(dirs_cam, R.T, axes=1, precision=_HI)
 
     D, H, W = grid.sdf.shape
     inv_vox = 1.0 / grid.voxel_size

@@ -1,12 +1,17 @@
 """Multi-chip scaling: device meshes, sharded TSDF fusion, sharded IK.
 
-The reference is single-process CPU (SURVEY.md §2 checklist row); the
-TPU-native communication backend is ``jax.sharding`` over an ICI mesh:
+The reference is single-process CPU (SURVEY.md §2 checklist row); here the
+communication backend is ``jax.sharding`` over a 1-D device mesh (on GPUs,
+NVLink joins every card to every other, so the mesh follows the
+algorithm alone):
 
   * **spatial sharding**: the TSDF grid splits along z over the mesh; every
     device integrates all frames into its slab (frames are small and
     replicated; the grid is big and never moves) — zero collectives in
     steady state, one ``all_gather`` only at mesh extraction.
+  * **brick sharding** (:mod:`parallel.brick`): the sparse engine's brick
+    rows split over the mesh; every device runs the single-card chunk loop
+    on its own range;
   * **data parallelism**: IK/NN batches shard over devices (roadmap
     expansion waves, arc solves).
 

@@ -1,15 +1,16 @@
-"""Brick-sharded TSDF fusion over a device mesh (the v5e-8 scaling path).
+"""Brick-sharded TSDF fusion over a device mesh.
 
 The brick axis is the natural parallel axis of the sparse engine: each
 device owns a contiguous range of bricks (its slab of the volume in brick
-order), frames replicate, and every device runs the SAME pallas kernel on
-its local active set — no collectives at all during integration (surface
-work divides across the mesh; an all_gather happens only at extraction).
+order), frames replicate, and every device runs the SAME chunk loop as a
+single card (``ops.tsdf_brick.integrate_chunks``) on its own range — no
+collectives at all during integration (surface work divides across the
+mesh; the grid moves only at extraction).
 
 Implementation: ``shard_map`` over a 1-D mesh. Each shard computes the
-global active mask (cheap, replicated math), slices its own brick range,
-compacts locally (its padding maps to its own local scratch row), and
-dispatches the kernel with meta-carried global-id offset.
+global active bits (cheap, replicated math), slices its own brick range,
+compacts locally, and updates its rows with the global-id offset of its
+range.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
@@ -27,34 +27,51 @@ from reconplan_tpu.parallel.mesh import make_mesh
 
 
 def make_sharded_brick_grid(dims, origin, voxel_size, mesh=None, trunc=None):
-    """BrickGrid whose (sdf, weight) carry a per-device scratch row:
-    arrays have shape (n_dev * (nb_local + 1), 8, 128), sharded on axis 0.
-    """
+    """BrickGrid whose (sdf, weight) rows are split evenly over the mesh
+    (sharded on axis 0)."""
     mesh = mesh or make_mesh()
     n_dev = mesh.devices.size
     grid = tb.make_brick_grid(dims, origin, voxel_size, trunc)
-    nb = grid.sdf.shape[0] - 1
+    nb = grid.sdf.shape[0]
     if nb % n_dev:
         raise ValueError(f"{nb} bricks not divisible by {n_dev} devices")
-    nb_local = nb // n_dev
-
-    def with_scratch_rows(a, pad_value):
-        body = a[:-1].reshape(n_dev, nb_local, tb.BRICK_Z, tb.BRICK_Y * tb.BRICK_X)
-        pad = jnp.full(
-            (n_dev, 1, tb.BRICK_Z, tb.BRICK_Y * tb.BRICK_X), pad_value, a.dtype
-        )
-        return jnp.concatenate([body, pad], axis=1).reshape(
-            n_dev * (nb_local + 1), tb.BRICK_Z, tb.BRICK_Y * tb.BRICK_X
-        )
-
     sharding = NamedSharding(mesh, P(mesh.axis_names[0], None, None))
-    sdf = jax.device_put(with_scratch_rows(grid.sdf, 1.0), sharding)
-    w = jax.device_put(with_scratch_rows(grid.weight, 0.0), sharding)
-    return grid._replace(sdf=sdf, weight=w), nb_local
+    return grid._replace(
+        sdf=jax.device_put(grid.sdf, sharding),
+        weight=jax.device_put(grid.weight, sharding),
+    )
+
+
+@partial(
+    jax.jit,
+    static_argnames=("mesh", "brick_dims", "max_active", "voxel_size",
+                     "trunc", "depth_scale", "depth_max", "max_weight"),
+    donate_argnums=(0, 1),
+)
+def _sharded_chunks(sdf, weight, depths, poses, intr, origin, mesh,
+                    brick_dims, max_active, voxel_size, trunc, depth_scale,
+                    depth_max, max_weight):
+    axis = mesh.axis_names[0]
+    nb_local = sdf.shape[0] // mesh.devices.size
+    vol = P(axis, None, None)
+
+    def shard_fn(sdf_l, w_l, depths_r, poses_r, intr_r, origin_r):
+        sdf_o, w_o, _, n_active = tb.integrate_chunks(
+            sdf_l, w_l, None, poses_r, intr_r, depths_r, None, origin_r,
+            jax.lax.axis_index(axis) * nb_local, brick_dims, max_active,
+            voxel_size, trunc, depth_scale, depth_max, max_weight,
+            tb.FRAMES_PER_CHUNK,
+        )
+        return sdf_o, w_o, n_active[None]
+
+    return shard_map(
+        shard_fn, mesh=mesh, in_specs=(vol, vol, P(), P(), P(), P()),
+        out_specs=(vol, vol, P(axis)), check_vma=False,
+    )(sdf, weight, depths, poses, intr, origin)
 
 
 def sharded_integrate_frames_bricked(
-    grid_and_nbl,
+    grid,
     depths,
     poses_cam_to_world,
     fx, fy, cx, cy,
@@ -63,86 +80,28 @@ def sharded_integrate_frames_bricked(
     depth_max=3.0,
     max_weight=64.0,
     max_active_per_device=4096,
-    interpret=False,
 ):
-    """Integrate frames into a brick-sharded grid. Returns (grid_and_nbl,
-    n_active total). ``grid_and_nbl`` is the (grid, nb_local) pair from
-    :func:`make_sharded_brick_grid`."""
-    grid, nb_local = grid_and_nbl
-    mesh = mesh or make_mesh()
-    axis = mesh.axis_names[0]
-    n_dev = mesh.devices.size
-    bd, bh, bw = grid.brick_dims
-
-    depths = jnp.asarray(depths, dtype=jnp.float32)
-    poses = jnp.asarray(poses_cam_to_world, dtype=jnp.float32)
-    intr = jnp.asarray([fx, fy, cx, cy], dtype=jnp.float32)
-    origin = jnp.asarray(grid.origin, dtype=jnp.float32)
-
-    vol_spec = P(axis, None, None)
-    rep = P()
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(vol_spec, vol_spec, rep, rep, rep),
-        out_specs=(vol_spec, vol_spec, P(axis)),
-        check_vma=False,
+    """Integrate frames into a brick-sharded grid from
+    :func:`make_sharded_brick_grid`. Returns (grid, n_active) with
+    ``n_active`` (n_devices, n_chunks) the unclamped active brick count of
+    each device's range per chunk."""
+    sdf, w, n_active = _sharded_chunks(
+        grid.sdf, grid.weight,
+        jnp.asarray(depths, dtype=jnp.float32),
+        jnp.asarray(poses_cam_to_world, dtype=jnp.float32),
+        jnp.asarray([fx, fy, cx, cy], dtype=jnp.float32),
+        grid.origin, mesh or make_mesh(), grid.brick_dims,
+        max_active_per_device, grid.voxel_size, grid.trunc, depth_scale,
+        depth_max, max_weight,
     )
-    def shard_fn(sdf_l, w_l, depths_r, poses_r, intr_r):
-        dev = jax.lax.axis_index(axis)
-        base = dev * nb_local
-        T_w2c = jnp.linalg.inv(poses_r)
-        mask_global = tb.active_brick_mask(
-            (bd, bh, bw), origin, grid.voxel_size, grid.trunc,
-            depths_r, T_w2c, intr_r[0], intr_r[1], intr_r[2], intr_r[3],
-            depth_scale, depth_max,
-        )
-        mask_local = jax.lax.dynamic_slice(mask_global, (base,), (nb_local,))
-        (ids_local,) = jnp.nonzero(
-            mask_local, size=max_active_per_device, fill_value=nb_local
-        )
-        n_active = jnp.sum(mask_local).astype(jnp.int32)
-        meta = jnp.concatenate(
-            [
-                origin,
-                jnp.asarray(
-                    [grid.voxel_size, grid.trunc, max_weight], dtype=jnp.float32
-                ),
-                base.astype(jnp.float32)[None],
-                jnp.asarray([float(nb_local)], dtype=jnp.float32),
-            ]
-        )
-        sdf_o, w_o = tb._integrate_bricks(
-            sdf_l, w_l, ids_local.astype(jnp.int32), meta,
-            T_w2c.reshape(-1, 16), intr_r, depths_r,
-            (bd, bh, bw), depth_scale, depth_max, max_weight,
-            interpret=interpret,
-        )
-        return sdf_o, w_o, n_active[None]
-
-    sdf, w, n_active = shard_fn(grid.sdf, grid.weight, depths, poses, intr)
-    return (grid._replace(sdf=sdf, weight=w), nb_local), jnp.sum(n_active)
+    return grid._replace(sdf=sdf, weight=w), n_active
 
 
-def gather_brick_grid(grid_and_nbl, mesh=None):
-    """Collect a brick-sharded grid to a standard single-scratch BrickGrid
-    on device 0 (for extraction)."""
-    grid, nb_local = grid_and_nbl
-    mesh = mesh or make_mesh()
-    n_dev = mesh.devices.size
-    dev0 = jax.devices()[0]
-
-    def strip(a):
-        a = jax.device_put(a, dev0)
-        body = a.reshape(n_dev, nb_local + 1, tb.BRICK_Z, tb.BRICK_Y * tb.BRICK_X)
-        return body[:, :-1].reshape(-1, tb.BRICK_Z, tb.BRICK_Y * tb.BRICK_X)
-
-    sdf_body = strip(grid.sdf)
-    w_body = strip(grid.weight)
-    pad_s = jnp.ones((1, tb.BRICK_Z, tb.BRICK_Y * tb.BRICK_X), sdf_body.dtype)
-    pad_w = jnp.zeros((1, tb.BRICK_Z, tb.BRICK_Y * tb.BRICK_X), w_body.dtype)
+def gather_brick_grid(grid):
+    """Copy a brick-sharded grid whole onto the first device for
+    extraction."""
+    device = jax.devices()[0]
     return grid._replace(
-        sdf=jnp.concatenate([sdf_body, pad_s]),
-        weight=jnp.concatenate([w_body, pad_w]),
+        sdf=jax.device_put(grid.sdf, device),
+        weight=jax.device_put(grid.weight, device),
     )

@@ -1,12 +1,12 @@
 """Spatially-sharded TSDF fusion over a device mesh.
 
 The 512^3 north-star grid is 0.5-1 GB of state; frames are ~1 MB each. So
-the grid shards along z across the ICI mesh and NEVER moves; depth frames
+the grid shards along z across the device mesh and NEVER moves; depth frames
 replicate to every device. The integration kernel
 (:func:`reconplan_tpu.ops.tsdf.integrate_frames`) is purely elementwise
 over the grid plus gathers from the (replicated) frames, so under GSPMD the
 z-sharding propagates straight through — zero collectives in steady state,
-8x the voxel throughput on a v5e-8. An ``all_gather`` happens only when the
+each device sweeping only its slab. An ``all_gather`` happens only when the
 host extracts the mesh (:func:`gather_grid`).
 
 This deliberately uses jit + sharding annotations rather than shard_map:

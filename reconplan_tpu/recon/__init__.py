@@ -1,7 +1,7 @@
 """Reconstruction pipelines: stitching, TSDF fusion, Poisson, metrics.
 
 The model layer of the framework — what ``stitcher.py`` + the absent
-TSDF/Poisson capabilities of the reference become on TPU.
+TSDF/Poisson capabilities of the reference become on the accelerator.
 """
 
 from reconplan_tpu.recon.metrics import chamfer_distance, chamfer_to_mesh

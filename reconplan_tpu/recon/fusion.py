@@ -24,11 +24,11 @@ class FusionPipeline:
     """Stateful fusion session around one TSDF grid.
 
     ``engine``:
-      * "brick" (default): the Pallas brick-sparse kernel
-        (ops.tsdf_brick) — surface-proportional work; color integrates as
-        a packed-RGB brick plane with dense-engine averaging semantics.
-      * "dense": the XLA gather kernel (ops.tsdf) — gather-bound on TPU;
-        fine for small grids and for CPU tests.
+      * "brick" (default): the brick-sparse engine (ops.tsdf_brick) —
+        surface-proportional work; color integrates as a packed-RGB brick
+        plane with dense-engine averaging semantics.
+      * "dense": the dense reference engine (ops.tsdf) — every call
+        sweeps the whole grid.
     """
 
     dims: tuple = (256, 256, 256)

@@ -7,7 +7,7 @@ code.
 
 Method (Kazhdan, "Reconstruction of Solid Models from Oriented Point Sets",
 SGP 2005 — the Fourier formulation of Poisson reconstruction, which maps
-perfectly onto TPU):
+onto dense FFTs on the accelerator):
   1. splat the oriented normal field V onto a regular grid (trilinear),
   2. smooth V with a Gaussian in Fourier space,
   3. solve the Poisson equation  div grad chi = div V  spectrally:

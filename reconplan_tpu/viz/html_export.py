@@ -1,7 +1,7 @@
 """Interactive HTML exports — the teleop/roadmap GUI gap-closer.
 
 The reference ships a Klampt OpenGL viewer (``klampt_vis.py:25-443``) for
-roadmap inspection and teleop. A TPU pod has no display; the portable
+roadmap inspection and teleop. A compute host has no display; the portable
 equivalent is a self-contained HTML file with an embedded vanilla-JS
 orbit viewer (no CDN/network dependency): drag to orbit, wheel to zoom,
 shift-drag to pan. Exports:

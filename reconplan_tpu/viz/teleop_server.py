@@ -2,8 +2,8 @@
 
 The reference's interactive surface is a Klampt OpenGL widget: drag a
 TransformPoser and watch ``resolution.teleop_solve`` track it each idle
-tick (``Expansion-GRR/visualization/klampt_vis.py:369-426``). A TPU host
-has no display, so the equivalent here is a tiny local HTTP bridge:
+tick (``Expansion-GRR/visualization/klampt_vis.py:369-426``). A compute
+host has no display, so the equivalent here is a tiny local HTTP bridge:
 
   * ``GET /``  — a self-contained orbit viewer (same vanilla-JS renderer
     family as :mod:`reconplan_tpu.viz.html_export`) showing the roadmap,

@@ -1,6 +1,6 @@
 """Multi-HOST (DCN) dryrun: 2 jax.distributed processes x 4 CPU devices.
 
-The ICI tests (tests/test_parallel.py) exercise every sharded kernel on a
+The single-host mesh tests (tests/test_parallel.py) exercise every sharded kernel on a
 single-process 8-device CPU mesh; what they cannot exercise is the
 multi-process code path — global mesh construction from
 ``jax.devices()`` spanning processes, cross-process collectives, and
